@@ -1,14 +1,14 @@
-"""mpf_tpu — TPU-native mixed-precision dense LU factorization.
+"""mpf_tpu — mixed-precision dense LU factorization in JAX, for the H100.
 
-A from-scratch JAX/XLA/Pallas/pjit library with the capabilities of the CUDA
-reference `Keyteer/Mixed-precision_LU_Factorization` (MPF: mixed-precision
-pre-pivoting LU, reference entry point `MPF.cu:66` / `MPF.h:3`), redesigned
-TPU-first and extended per the north star with iterative refinement,
-2D block-cyclic multi-chip distribution, and batched factorizations.
+A JAX library with the capabilities of the CUDA reference
+`Keyteer/Mixed-precision_LU_Factorization` (MPF: mixed-precision
+pre-pivoting LU, reference entry point `MPF.cu:66` / `MPF.h:3`), extended
+per the north star with iterative refinement, 2D block-cyclic multi-device
+distribution, and batched factorizations.
 
 Layer map (SURVEY.md section 1):
   L0 precision policy      -> mpf_tpu.precision
-  L1 device kernels        -> mpf_tpu.ops (jnp reference impls + Pallas kernels)
+  L1 device kernels        -> mpf_tpu.ops (jnp versions + CUDA / Pallas Triton kernels)
   L2 blocked driver        -> mpf_tpu.models.mpf
   L3 harness / CLI         -> mpf_tpu.utils + benchmark.py / matrix_generator.py
   L4 environment tooling   -> mpf_tpu.parallel.mesh (device/mesh probe)

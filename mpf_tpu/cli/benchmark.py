@@ -29,8 +29,6 @@ def _print_matrix(name, m):
         print("  " + " ".join(f"{v:7.3f}" for v in row))
 
 
-import mpf_tpu.config  # applies MPF_FORCE_CPU before jax init
-
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="mpf-benchmark")
@@ -53,6 +51,9 @@ def main(argv=None) -> int:
                     "XLA_FLAGS=--xla_force_host_platform_device_count)")
     args = ap.parse_args(argv)
 
+    from mpf_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     import jax.numpy as jnp
     import scipy.linalg
 
@@ -116,7 +117,7 @@ def main(argv=None) -> int:
                     continue
                 dfn = make_dist_lu(n, r, mesh, policy)
                 tiles = shard_block_cyclic(a32, mesh, r)
-                mpf_time, _ = time_fn(dfn, tiles, warmup=1, iters=3)
+                mpf_time = time_fn(dfn, tiles, warmup=1, iters=3)
                 tl, ipiv, info, perm = dfn(tiles)
                 res = MPFResult(
                     lu=from_block_cyclic(tl, n, r), ipiv=ipiv, info=info,
@@ -128,7 +129,7 @@ def main(argv=None) -> int:
                       else int(args.super_block))
                 fn = lambda x: mpf_factorize(
                     x, r=r, policy=policy, block=args.block, super_block=sb)
-                mpf_time, _ = time_fn(fn, a32, warmup=1, iters=3)
+                mpf_time = time_fn(fn, a32, warmup=1, iters=3)
                 res = fn(a32)
 
             t0 = time.perf_counter()

@@ -1,4 +1,4 @@
-"""Device/mesh capability probe CLI — the TPU-native analogue of the
+"""Device/mesh capability probe CLI — the analogue of the
 reference's `check_cooperative_groups.cu:4-48` (which enumerates CUDA
 devices and reports cooperative-launch capability):
 
@@ -10,8 +10,6 @@ from __future__ import annotations
 import json
 import sys
 
-
-import mpf_tpu.config  # applies MPF_FORCE_CPU before jax init
 
 
 def main(argv=None) -> int:

@@ -15,6 +15,7 @@ import jax
 
 from mpf_tpu.precision import PrecisionPolicy, MPF_BF16
 from mpf_tpu.models.mpf import mpf_factorize_traced, MPFResult
+from mpf_tpu.ops.getf2 import panel_pivots_perm
 
 
 @functools.partial(jax.jit, static_argnames=("r", "policy", "pivot"))
@@ -26,28 +27,14 @@ def batched_factorize(
 ) -> MPFResult:
     """Factor a (batch, n, n) stack of matrices.  Returns stacked MPFResult.
 
-    The blocked driver runs under ``vmap`` with the jnp reference kernels
-    (the fused single-matrix kernels' aliasing/DMA patterns are not
-    vmappable).
-
-    A grid-parallel batched Pallas kernel (round 2, batch-tiled programs
-    with per-column virtual pivoting) was measured performance-EQUAL to
-    this vmapped path at the BASELINE config-5 shape (4096 x 256^2: both
-    0.15 TF/s on the v5e) and removed in round 3.  The architectural
-    reason: a 256^2 LU is too small for the MXU's tiles, so both paths are
-    VPU elimination loops, and the per-column pivot-row extractions (masked
-    cross-lane reduces, one per future column per strip) cost more vector
-    work than the rank-k update FMAs they feed — a bound no batch layout
-    changes.  TPU-native batched throughput comes from the batch axis
-    itself: this driver is shardable over the mesh batch dim
-    (`mpf_tpu/parallel`), which is BASELINE config 5's actual scaling axis.
+    The blocked driver runs under ``vmap``.  Its pivot panel is the jnp
+    version: the CUDA panel kernel factors one panel per launch and has no
+    batched form.  Throughput at scale comes from the batch axis itself:
+    :func:`batched_factorize_dp` shards it over a mesh.
     """
-    fn = lambda m: mpf_factorize_traced(m, r=r, policy=policy, pivot=pivot)
-
-    from mpf_tpu import config
-
-    with config.force_jnp_kernels():
-        return jax.vmap(fn)(a)
+    fn = lambda m: mpf_factorize_traced(m, r=r, policy=policy, pivot=pivot,
+                                        panel_kernel=panel_pivots_perm)
+    return jax.vmap(fn)(a)
 
 
 def batched_factorize_dp(
@@ -88,13 +75,11 @@ def batched_solve(a: jax.Array, b: jax.Array, r: int = 128,
     from mpf_tpu.models.refine import ir_solve
 
     def one(m, rhs):
-        res = mpf_factorize_traced(m, r=r, policy=policy, pivot=True)
+        res = mpf_factorize_traced(m, r=r, policy=policy, pivot=True,
+                                   panel_kernel=panel_pivots_perm)
         # pass the composed perm: without it every getrs inside the IR loop
         # re-derives it from ipiv via an O(n) sequential fori_loop
         return ir_solve(m.astype(policy.working), res.lu, res.ipiv, rhs,
                         sweeps=sweeps, perm=res.perm).x
 
-    from mpf_tpu import config
-
-    with config.force_jnp_kernels():
-        return jax.vmap(one)(a, b)
+    return jax.vmap(one)(a, b)

@@ -44,7 +44,7 @@ def ir_solve(
     """Richardson iterative refinement: x_{k+1} = x_k + solve(LU, b - A x_k).
 
     ``a`` is the original (working-precision) matrix; residuals are computed
-    in fp32 with fp32 MXU accumulation.
+    in fp32 with fp32 accumulation at HIGHEST precision.
     """
     a32 = a.astype(jnp.float32)
     b32 = b.astype(jnp.float32)

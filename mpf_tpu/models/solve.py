@@ -22,14 +22,14 @@ def _as_matrix(b):
     return b, False
 
 
-# Above this size the two full-matrix triangular_solve custom calls are
-# replaced by blocked substitution: XLA's LU custom call already vmem-OOMs
-# at n=32768 on the v5e backend (BENCH_r02 tail), and its TRSM shares the
-# same monolithic lowering.  Blocked substitution reads each triangle once
-# (HBM-bound, ~n^2/2 elements per triangle) with only (nb, nb) native
-# solves on the diagonal blocks.
+# Above this size the two full-matrix triangular_solve calls are replaced by
+# blocked substitution, which reads each triangle once (~n^2/2 elements per
+# triangle) with only (nb, nb) triangular solves on the diagonal blocks.
+# Which of the two is faster on the H100 is not measured yet.
 _BLOCKED_SOLVE_MIN = 32768
 _SOLVE_NB = 2048
+# the off-diagonal products run in the working precision (fp32), never TF32
+_HI = jax.lax.Precision.HIGHEST
 
 
 def _blocked_substitution(lu, b, nb: int):
@@ -41,7 +41,7 @@ def _blocked_substitution(lu, b, nb: int):
     for i in range(0, n, nb):
         rhs = b[i:i + nb]
         if i:
-            rhs = rhs - lu[i:i + nb, :i] @ y[:i]
+            rhs = rhs - jnp.dot(lu[i:i + nb, :i], y[:i], precision=_HI)
         yi = jax.lax.linalg.triangular_solve(
             lu[i:i + nb, i:i + nb], rhs, left_side=True, lower=True,
             unit_diagonal=True,
@@ -51,7 +51,7 @@ def _blocked_substitution(lu, b, nb: int):
     for i in range(n - nb, -1, -nb):
         rhs = y[i:i + nb]
         if i + nb < n:
-            rhs = rhs - lu[i:i + nb, i + nb:] @ x[i + nb:]
+            rhs = rhs - jnp.dot(lu[i:i + nb, i + nb:], x[i + nb:], precision=_HI)
         xi = jax.lax.linalg.triangular_solve(
             lu[i:i + nb, i:i + nb], rhs, left_side=True, lower=False,
         )
@@ -70,7 +70,7 @@ def _blocked_substitution_t(lu, b, nb: int):
         rhs = b[i:i + nb]
         if i:
             # U^T[i:i+nb, :i] = U[:i, i:i+nb]^T
-            rhs = rhs - lu[:i, i:i + nb].T @ y[:i]
+            rhs = rhs - jnp.dot(lu[:i, i:i + nb].T, y[:i], precision=_HI)
         yi = jax.lax.linalg.triangular_solve(
             lu[i:i + nb, i:i + nb], rhs, left_side=True, lower=False,
             transpose_a=True,
@@ -81,7 +81,7 @@ def _blocked_substitution_t(lu, b, nb: int):
         rhs = y[i:i + nb]
         if i + nb < n:
             # L^T[i:i+nb, i+nb:] = L[i+nb:, i:i+nb]^T
-            rhs = rhs - lu[i + nb:, i:i + nb].T @ x[i + nb:]
+            rhs = rhs - jnp.dot(lu[i + nb:, i:i + nb].T, x[i + nb:], precision=_HI)
         xi = jax.lax.linalg.triangular_solve(
             lu[i:i + nb, i:i + nb], rhs, left_side=True, lower=True,
             unit_diagonal=True, transpose_a=True,
@@ -149,7 +149,7 @@ def getri(
 ) -> jax.Array:
     """A^-1 from the packed factors (LAPACK getri): solve A X = I through
     :func:`getrs`.  The blocked-substitution path makes the off-diagonal
-    work (nb, i) @ (i, n) MXU GEMMs, so the n-RHS solve is BLAS3-rich —
+    work (nb, i) @ (i, n) GEMMs, so the n-RHS solve is BLAS3-rich —
     there is no separate in-place getri kernel."""
     n = lu.shape[0]
     return getrs(lu, ipiv, jnp.eye(n, dtype=lu.dtype), perm)

@@ -1,23 +1,23 @@
-"""BLAS3 building blocks on the MXU.
+"""BLAS3 building blocks.
 
-TPU-native equivalents of the reference's cuBLAS calls (`MPF.cu:215-239`):
+Equivalents of the reference's cuBLAS calls (`MPF.cu:215-239`):
 
   * :func:`trsm_u12` — the left/lower/no-trans/unit-diag TRSM computing
     U12 = L11^{-1} A12 (`cublasDtrsm`, `MPF.cu:215-225`)
   * :func:`trsm_l21` — right/upper TRSM computing L21 = A21 U11^{-1}
     (the reference instead re-runs its no-pivot elimination kernel over the
-    whole (m, r) panel, `MPF.cu:183`; on TPU the sub-diagonal part of that
-    elimination is exactly a triangular solve, which maps to the MXU via the
-    inverse-GEMM trick below, so only the r x r top block needs the scalar
+    whole (m, r) panel, `MPF.cu:183`; the sub-diagonal part of that
+    elimination is exactly a triangular solve, which becomes one GEMM via
+    the inverse trick below, so only the r x r top block needs the scalar
     elimination loop)
   * :func:`trailing_update` — A22 <- A22 - L21 @ U12 (`cublasDgemm` with
     alpha=-1, beta=1, `MPF.cu:230-239`), with policy-controlled operand
-    precision and fp32 MXU accumulation.
+    precision and fp32 accumulation.
 
 Triangular solves with many right-hand sides are implemented as
 ``inv(T) @ B`` where ``inv(T)`` of the r x r triangular block is computed
 once per panel with a fixed-size triangular solve against the identity —
-turning the O(r^2 n) TRSM into one r x r solve plus a single MXU GEMM
+turning the O(r^2 n) TRSM into one r x r solve plus a single GEMM
 (the standard HPL-on-accelerator formulation).  Set ``use_inv=False`` for
 the direct `lax.linalg.triangular_solve` path.
 """
@@ -31,9 +31,10 @@ from mpf_tpu.precision import PrecisionPolicy, MPF_BF16
 
 
 def _mm_precision(x):
-    """fp32 operands must request HIGHEST precision on TPU, or XLA lowers the
-    matmul to bf16 MXU passes and silently degrades the working precision;
-    low-precision operands take the fast default path."""
+    """fp32 operands request HIGHEST precision: at the default precision the
+    GPU runs fp32 products in TF32 (about three decimal digits) and silently
+    degrades the working precision; low-precision operands take the default
+    path (fp32 accumulation is asked for with ``preferred_element_type``)."""
     return jax.lax.Precision.HIGHEST if x.dtype == jnp.float32 else None
 
 
@@ -49,39 +50,29 @@ def unit_lower_inv(l11: jnp.ndarray) -> jnp.ndarray:
 
 def unit_lower_inv_blocked(l11: jnp.ndarray, base: int = 128) -> jnp.ndarray:
     """Inverse of a unit-lower-triangular block by recursive 2x2 block
-    partitioning — log-depth, all the O(n^3) work in MXU GEMMs:
+    partitioning — log-depth, all the O(n^3) work in GEMMs:
 
         inv([[A, 0], [B, C]]) = [[inv(A), 0], [-inv(C) B inv(A), inv(C)]]
 
     The <= ``base``-sized leaves use the scalar triangular solve.  This is
-    how the reference's big cublasDtrsm (`MPF.cu:215-225`) becomes
-    MXU-friendly for wide blocks on TPU."""
-    from mpf_tpu import config
-
-    def leaf(x):
-        if config.use_pallas() and x.shape[0] % 8 == 0:
-            from mpf_tpu.ops.panel_pallas import unit_lower_inv_pallas
-
-            return unit_lower_inv_pallas(x)
-        return unit_lower_inv(x)
-
+    how the reference's big cublasDtrsm (`MPF.cu:215-225`) becomes GEMMs
+    for wide blocks."""
     n = l11.shape[0]
-    if n <= base:
-        return leaf(l11)
     h = (n // 2 + base - 1) // base * base  # split at a multiple of base
-    if h >= n:
-        return leaf(l11)
+    if n <= base or h >= n:
+        return unit_lower_inv(l11)
     a = l11[:h, :h]
     bmat = l11[h:, :h]
     c = l11[h:, h:]
     ai = unit_lower_inv_blocked(a, base)
     ci = unit_lower_inv_blocked(c, base)
-    prec = _mm_precision(l11)
+    # the inner product accumulates in fp32, so the outer one multiplies
+    # fp32 operands whatever the block's dtype
+    inner = jnp.dot(bmat, ai, preferred_element_type=jnp.float32,
+                    precision=_mm_precision(l11))
     x = -jnp.dot(
-        ci,
-        jnp.dot(bmat, ai, preferred_element_type=jnp.float32, precision=prec),
-        preferred_element_type=jnp.float32,
-        precision=prec,
+        ci.astype(jnp.float32), inner, preferred_element_type=jnp.float32,
+        precision=jax.lax.Precision.HIGHEST,
     ).astype(l11.dtype)
     top = jnp.concatenate([ai, jnp.zeros((h, n - h), dtype=l11.dtype)], axis=1)
     bot = jnp.concatenate([x, ci], axis=1)
@@ -138,7 +129,7 @@ def trailing_update(
     policy: PrecisionPolicy = MPF_BF16,
 ) -> jnp.ndarray:
     """A22 <- A22 - L21 @ U12 with policy-controlled GEMM input precision and
-    MXU accumulation (`preferred_element_type=policy.accum`).  This is the
+    accumulation (`preferred_element_type=policy.accum`).  This is the
     O(n^3)-dominant operation (`MPF.cu:230-239`)."""
     l = l21.astype(policy.gemm_in)
     u = u12.astype(policy.gemm_in)

@@ -1,6 +1,6 @@
 """Unblocked panel LU kernels (jnp reference implementations).
 
-TPU-native equivalents of the reference's two cooperative CUDA kernels:
+jnp versions of the reference's two cooperative CUDA kernels:
 
   * :func:`panel_pivots` — the low-precision pre-pivoting panel LU
     (`HGETF2_kernel`, `hgetf2_kernel.cu:15-120`): full partial-pivoted LU of
@@ -9,8 +9,8 @@ TPU-native equivalents of the reference's two cooperative CUDA kernels:
     writes `d_P_FP16_buffer` at `MPF.cu:120`, reads only `ipiv_panel` back at
     `MPF.cu:145`).  The reference's 4 grid-wide barriers per column
     (`hgetf2_kernel.cu:25,65,84,101`) become a `lax.fori_loop` over columns of
-    fully vectorized VPU ops — there is no inter-core grid barrier on TPU and
-    none is needed.
+    fully vectorized ops.  On the GPU the driver runs the CUDA kernel
+    `native/panel_pivots.cu` in its place, which returns the same pivots.
   * :func:`getf2_npv` — the working-precision no-pivot re-factorization
     (`dgetf2_native_npv`, `dgetf2_native_npv.cu:11-36`), with the zero-pivot
     detection the reference lacks (`dgetf2_native_npv.cu:23-24` divides
@@ -112,8 +112,8 @@ def panel_pivots_perm(
         sa = perm[d]
         sb = perm[pj]
         perm = perm.at[d].set(sb).at[pj].set(sa)
-        # fp32 multipliers rounded to panel dtype — bit-identical to the
-        # Pallas kernel (mpf_tpu/ops/panel_pallas.py)
+        # fp32 multipliers rounded to panel dtype — the CUDA kernel
+        # (native/panel_pivots.cu) rounds the same way
         pivval = p[d, j].astype(jnp.float32)
         safe = jnp.where(pivval == 0, jnp.float32(1), pivval)
         mult = jnp.where(

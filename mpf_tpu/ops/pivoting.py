@@ -1,6 +1,6 @@
 """LASWP-style row interchange application.
 
-TPU-native equivalent of the reference's `LASWP_kernel` (`MPF.cu:42-59`,
+Equivalent of the reference's `LASWP_kernel` (`MPF.cu:42-59`,
 launched per panel at `MPF.cu:162`): applies a panel's pivot swaps to the
 **full-width** matrix rows (including already-factored L columns — LAPACK
 convention, `MPF.cu:52-56`), **sequentially in pivot order** — sequential
@@ -10,9 +10,8 @@ gather over only the affected rows.
 
 Traffic analysis (why not a full-matrix gather): a full N×N row-gather per
 panel costs N^3/r elements over the factorization — for n=32768, r=256
-that is ~550 GB of HBM traffic, 5x the trailing-GEMM time.  Swapping via a
-bounded set of at most 2r affected rows costs O(r·N) per panel, ~16N^2 bytes
-total.
+that is ~550 GB of device-memory traffic.  Swapping via a bounded set of at
+most 2r affected rows costs O(r·N) per panel, ~16N^2 bytes total.
 """
 
 from __future__ import annotations
@@ -70,6 +69,31 @@ def apply_row_swaps(a: jnp.ndarray, piv_global: jnp.ndarray, k: int, ncols: int)
     src_rows = jnp.where(jnp.take(moved, cand), src_rows, cand + jnp.int32(k))
     gathered = jnp.take(a, src_rows, axis=0)                  # (2*ncols, N)
     return a.at[cand + jnp.int32(k), :].set(gathered, mode="drop")
+
+
+def laswp_bounded(a: jnp.ndarray, k, piv: jnp.ndarray, perm: jnp.ndarray,
+                  skip: tuple[int, int] | None = None) -> jnp.ndarray:
+    """Apply a panel's swaps to the rows of ``a`` through its composed row
+    map — the LASWP of the blocked driver (`MPF.cu:42-59`).
+
+    ``piv``: (nr,) 0-based pivot rows of the panel whose diagonal starts at
+    row ``k`` (static or traced); ``perm``: the panel's composed row map
+    (``a_new[i] = a[perm[i]]``).  Only the destinations ``k..k+nr-1`` and the
+    pivot rows can move, so one gather and one scatter of those <= 2*nr rows
+    apply all swaps.  ``skip = (c0, c1)`` (static) leaves columns
+    ``[c0, c1)`` untouched (the block column the driver writes itself)."""
+    nr = piv.shape[0]
+    cand = jnp.concatenate(
+        [jax.lax.broadcasted_iota(jnp.int32, (nr,), 0) + k, piv])
+    src = jnp.take(perm, cand)
+    if skip is None:
+        return a.at[cand, :].set(jnp.take(a, src, axis=0))
+    c0, c1 = skip
+    if c0 > 0:
+        a = a.at[cand, :c0].set(jnp.take(a[:, :c0], src, axis=0))
+    if c1 < a.shape[1]:
+        a = a.at[cand, c1:].set(jnp.take(a[:, c1:], src, axis=0))
+    return a
 
 
 def ipiv_to_perm(ipiv: jnp.ndarray) -> jnp.ndarray:

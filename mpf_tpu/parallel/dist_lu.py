@@ -1,7 +1,7 @@
 """Distributed blocked MPF LU over a 2D block-cyclic layout (shard_map).
 
 [north-star addition — the reference is strictly single-GPU (`MPF.cu:77`,
-no NCCL/MPI anywhere, SURVEY.md section 2); this is the ICI-collective
+no NCCL/MPI anywhere, SURVEY.md section 2); this is the collective-based
 redesign of its panel loop.]
 
 Per panel step k (block column of width b), executed SPMD on a (P, Q) mesh:
@@ -9,7 +9,7 @@ Per panel step k (block column of width b), executed SPMD on a (P, Q) mesh:
   1. **panel gather** — the owning device column contributes its local
      blocks of column k; ``psum`` over the column axis + ``all_gather`` over
      the row axis replicates the full (N, b) panel on every device
-     (the ICI analogue of the reference's per-panel D2D panel extract,
+     (the collective analogue of the reference's per-panel D2D panel extract,
      `MPF.cu:108-115`).
   2. **replicated panel factorization** — every device runs the same
      pre-pivoting sequence on identical data (deterministic, so no pivot
@@ -22,12 +22,12 @@ Per panel step k (block column of width b), executed SPMD on a (P, Q) mesh:
      without materializing any permutation matrix).
   4. **U12 broadcast** — the owning device row solves U12 = L11^{-1} A12 for
      its local columns; a masked ``psum`` over the row axis replicates it.
-  5. **trailing update** — every device updates its local tile with one MXU
+  5. **trailing update** — every device updates its local tile with one
      GEMM: A_loc -= L_panel[my rows] @ U12[my cols] (the reference's
      cublasDgemm, `MPF.cu:230-239`), in the policy's GEMM precision.
 
 Everything lives inside one jitted ``lax.fori_loop`` — zero host sync
-points, fixed shapes, collectives ride ICI.
+points, fixed shapes, collectives over the interconnect (NVLink on the GPU).
 """
 
 from __future__ import annotations
@@ -38,21 +38,11 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import PartitionSpec as P
 
-from mpf_tpu import config
 from mpf_tpu.precision import PrecisionPolicy, MPF_BF16, cast_to_panel
-from mpf_tpu.models.mpf import (
-    MPFResult,
-    _auto_panel_kernel,
-    _auto_npv_kernel,
-    _factor_block_column_fused,
-)
-from mpf_tpu.ops.getf2 import panel_pivots_perm, getf2_npv
-from mpf_tpu.ops.blas3 import (
-    unit_lower_inv,
-    unit_lower_inv_blocked,
-    upper_inv,
-    _mm_precision,
-)
+from mpf_tpu.models.mpf import MPFResult, l11_inv
+from mpf_tpu.ops.diag_triton import diag_kernel
+from mpf_tpu.ops.getf2 import panel_pivots_perm
+from mpf_tpu.ops.blas3 import _mm_precision
 from mpf_tpu.parallel.mesh import ROW_AXIS, COL_AXIS
 from mpf_tpu.parallel.block_cyclic import (
     check_dims,
@@ -80,7 +70,7 @@ def _dist_lu_local(tile, *, n, b, gp, gq, nb, policy, pivot):
     def gather_panel(aloc, k):
         """Replicate block column k as an (N, b) panel: psum over the column
         axis (only the owner contributes) + all_gather over the row axis —
-        the ICI analogue of the reference's per-panel D2D panel extract
+        the collective analogue of the reference's per-panel D2D panel extract
         (`MPF.cu:108-115`).  ``k`` may be past the end (clamped; the caller
         ignores the result on the final iteration)."""
         jl = jnp.minimum(k // gq, nlq - 1)
@@ -103,8 +93,7 @@ def _dist_lu_local(tile, *, n, b, gp, gq, nb, policy, pivot):
         # device, so no pivot broadcast is needed — the reference instead
         # round-trips pivots through the host, `MPF.cu:145-159`) ------------
         if pivot:
-            kern = _auto_panel_kernel(n, b)
-            piv, pperm = kern(cast_to_panel(panel, policy), row_offset=off)
+            piv, pperm = panel_pivots_perm(cast_to_panel(panel, policy), row_offset=off)
         else:
             piv = off + jax.lax.broadcasted_iota(jnp.int32, (b, 1), 0)[:, 0]
             pperm = rows_g
@@ -119,11 +108,10 @@ def _dist_lu_local(tile, *, n, b, gp, gq, nb, policy, pivot):
         if pivot:
             panel = panel.at[cand, :].set(jnp.take(panel, src_g, axis=0))
         diag = jax.lax.dynamic_slice(panel, (off, 0), (b, b))
-        diag_lu, info_k = _auto_npv_kernel(b, diag.dtype)(diag)
+        diag_lu, _, uinv, info_k = diag_kernel(diag.dtype, b)(diag)
         info = jnp.where((info == 0) & (info_k > 0), info_k + off, info)
         l21 = jnp.dot(
-            panel, upper_inv(diag_lu), preferred_element_type=policy.accum,
-            precision=fprec,
+            panel, uinv, preferred_element_type=policy.accum, precision=fprec,
         ).astype(panel.dtype)
         panel = jnp.where((rows_g >= off + b)[:, None], l21, panel)
         panel = jax.lax.dynamic_update_slice(panel, diag_lu, (off, 0))
@@ -152,7 +140,7 @@ def _dist_lu_local(tile, *, n, b, gp, gq, nb, policy, pivot):
         rowsl = jnp.where(pp == pk, rowsl, jnp.zeros_like(rowsl))
         rowsl = jax.lax.psum(rowsl, ROW_AXIS)                # (b, W) replicated
         u12 = jnp.dot(
-            unit_lower_inv(diag_lu), rowsl, preferred_element_type=policy.accum,
+            l11_inv(diag_lu, b), rowsl, preferred_element_type=policy.accum,
             precision=fprec,
         ).astype(aloc.dtype)
         colmask = gcols >= off + b                           # (W,)
@@ -163,7 +151,7 @@ def _dist_lu_local(tile, *, n, b, gp, gq, nb, policy, pivot):
         # -- 5. lookahead: update ONLY the next panel's local column with a
         # narrow GEMM, then start its gather — the collectives carry no data
         # dependence on the big trailing GEMM below, so XLA's latency-hiding
-        # scheduler overlaps them with it (comm/compute overlap over ICI) ---
+        # scheduler overlaps them with it (comm/compute overlap) ---
         lmine = jnp.where((grows >= off + b)[:, None], panel_mine, 0)
         u12m = jnp.where(colmask[None, :], u12, 0)
         gin = policy.gemm_in
@@ -183,7 +171,7 @@ def _dist_lu_local(tile, *, n, b, gp, gq, nb, policy, pivot):
         )
         panel_next = gather_panel(aloc2, k + 1)
 
-        # -- 6. trailing update (one local MXU GEMM, the reference's
+        # -- 6. trailing update (one local GEMM, the reference's
         # cublasDgemm `MPF.cu:230-239`), skipping the column block already
         # updated in the lookahead ----------------------------------------
         cidx = jax.lax.broadcasted_iota(jnp.int32, (w, 1), 0)[:, 0] // b
@@ -204,16 +192,18 @@ def _dist_lu_local(tile, *, n, b, gp, gq, nb, policy, pivot):
 
 
 def _dist_lu_local_owner(tile, *, n, b, gp, gq, nb, policy, pivot):
-    """Owner-column / row-sharded-panel variant of :func:`_dist_lu_local`
-    (round 4 — VERDICT r3 item 4): the (N, b) panel is never replicated.
+    """Owner-column / row-sharded-panel variant of :func:`_dist_lu_local`:
+    the (N, b) panel is never replicated.
     Each device keeps only its local (H, b) rows of block column k (one
     COL-axis psum; the ROW-axis all_gather of the replicated path is gone),
     pivot selection runs sharded (:func:`_dist_panel_pivots_sharded`), and
     the working-precision refactor (L21 = panel · U11⁻¹) runs on local rows
     only — per-device panel flops scale as 1/P with the mesh instead of
     staying constant.  Pivots and factors are bit-identical to the
-    replicated path (tested), which in turn bit-matches the single-chip
-    driver."""
+    replicated path and to the single-device driver run with
+    ``r = block = b`` (tested): both take the diagonal refactor from
+    :func:`~mpf_tpu.ops.diag_triton.diag_kernel` and U12's inverse from
+    :func:`~mpf_tpu.models.mpf.l11_inv`."""
     aloc = tile[0, 0]
     h, w = aloc.shape
     pp = jax.lax.axis_index(ROW_AXIS)
@@ -273,12 +263,11 @@ def _dist_lu_local_owner(tile, *, n, b, gp, gq, nb, policy, pivot):
         diag = jax.lax.psum(
             jnp.where(pp == pk, diag, jnp.zeros_like(diag)), ROW_AXIS
         )
-        diag_lu, info_k = _auto_npv_kernel(b, diag.dtype)(diag)
+        diag_lu, _, uinv, info_k = diag_kernel(diag.dtype, b)(diag)
         info = jnp.where((info == 0) & (info_k > 0), info_k + off, info)
         # L21 on LOCAL rows only — the 1/P panel-flop scaling
         l21 = jnp.dot(
-            ploc, upper_inv(diag_lu), preferred_element_type=policy.accum,
-            precision=fprec,
+            ploc, uinv, preferred_element_type=policy.accum, precision=fprec,
         ).astype(ploc.dtype)
         pmine = jnp.where((grows >= off + b)[:, None], l21, ploc)
         dmine = jax.lax.dynamic_slice(pmine, (il * b, 0), (b, b))
@@ -308,7 +297,7 @@ def _dist_lu_local_owner(tile, *, n, b, gp, gq, nb, policy, pivot):
         rowsl = jnp.where(pp == pk, rowsl, jnp.zeros_like(rowsl))
         rowsl = jax.lax.psum(rowsl, ROW_AXIS)                # (b, W)
         u12 = jnp.dot(
-            unit_lower_inv(diag_lu), rowsl, preferred_element_type=policy.accum,
+            l11_inv(diag_lu, b), rowsl, preferred_element_type=policy.accum,
             precision=fprec,
         ).astype(aloc.dtype)
         colmask = gcols >= off + b
@@ -336,7 +325,7 @@ def _dist_lu_local_owner(tile, *, n, b, gp, gq, nb, policy, pivot):
         )
         ploc_next = gather_panel_local(aloc2, k + 1)
 
-        # -- 8. trailing update (one local MXU GEMM) ------------------------
+        # -- 8. trailing update (one local GEMM) ------------------------
         cidx = jax.lax.broadcasted_iota(jnp.int32, (w, 1), 0)[:, 0] // b
         skip = (qq == qk2) & (cidx == jl2)
         u12g = jnp.where(skip[None, :], 0, u12m).astype(gin)
@@ -355,8 +344,8 @@ def _dist_lu_local_owner(tile, *, n, b, gp, gq, nb, policy, pivot):
 
 
 def _dist_panel_pivots_sharded(ploc, vpos0, off, b: int, n: int):
-    """Row-sharded hgetf2-style pivot selection (owner-column panel work,
-    round 4 — VERDICT r3 item 4): every device eliminates ONLY its local
+    """Row-sharded hgetf2-style pivot selection (owner-column panel work):
+    every device eliminates ONLY its local
     rows of the panel, so per-device panel flops are (n/P)·b² instead of
     the replicated path's n·b² (the Amdahl wall as the mesh grows), and the
     (n, b) all_gather disappears.  Pivots are reduced over the mesh row
@@ -417,507 +406,23 @@ def _dist_panel_pivots_sharded(ploc, vpos0, off, b: int, n: int):
     return piv, perm
 
 
-def _dist_fused_ok(n: int, b: int, r: int, policy, pivot: bool) -> bool:
-    """Gate for the fused replicated-panel path (same kernel constraints as
-    the single-chip `_fused_ok`, full-height panels)."""
-    import jax.numpy as _jnp
-
-    if not (pivot and config.use_pallas()):
-        return False
-    if policy.saturate_panel or _jnp.dtype(policy.panel) not in (
-        _jnp.bfloat16, _jnp.float32
-    ):
-        return False
-    if _jnp.dtype(policy.working) not in (_jnp.bfloat16, _jnp.float32):
-        return False
-    if n % 128 or b % r or r % 8 or r < 8 or n % min(512, n):
-        return False
-    if r % 128 and jax.default_backend() == "tpu":
-        return False
-    if r * n * _jnp.dtype(policy.panel).itemsize > (12 << 20):
-        return False
-    return True
-
-
-def _dist_super_far(aloc, s0, sbe, *, n, b, r, gp, gq, pp, qq, grows, gcols,
-                    policy):
-    """Deferred superblock far update (three-level blocking, the dist analog
-    of the single-chip `_trailing_update` wide call): at the superblock
-    boundary, assemble the superblock's L panel and packed diagonal block
-    from the current (exchange-applied) local tiles, compute the far U12 in
-    one wide TRSM, and update the far trailing window with one local kk=S
-    GEMM.  Collectives: one COL_AXIS psum of the (h, S) L panel, one
-    ROW_AXIS psum of the (S, S) diagonal block, one ROW_AXIS psum of the
-    (S, w) band rows — the same volume the per-step path spreads over S/b
-    messages, in 3."""
-    h, w = aloc.shape
-    nlp, nlq = h // b, w // b
-    S = sbe - s0
-    fprec = _mm_precision(jnp.zeros((), policy.working))
-    # superblock L panel for the local rows (each device owns cols j%gq==qq)
-    parts = [
-        jnp.where(qq == (j % gq),
-                  jax.lax.dynamic_slice(aloc, (0, (j // gq) * b), (h, b)),
-                  jnp.zeros((h, b), aloc.dtype))
-        for j in range(s0 // b, sbe // b)
-    ]
-    lloc = jax.lax.psum(jnp.concatenate(parts, axis=1), COL_AXIS)   # (h, S)
-    # replicated (S, S) packed diagonal block
-    bparts = [
-        jnp.where(pp == (i % gp),
-                  jax.lax.dynamic_slice(lloc, ((i // gp) * b, 0), (b, S)),
-                  jnp.zeros((b, S), aloc.dtype))
-        for i in range(s0 // b, sbe // b)
-    ]
-    lss = jax.lax.psum(jnp.concatenate(bparts, axis=0), ROW_AXIS)   # (S, S)
-    # replicated band rows of the local tiles (raw A12 — far columns
-    # received NO updates from this superblock's panels, by deferral)
-    aparts = [
-        jnp.where(pp == (i % gp),
-                  jax.lax.dynamic_slice(aloc, ((i // gp) * b, 0), (b, w)),
-                  jnp.zeros((b, w), aloc.dtype))
-        for i in range(s0 // b, sbe // b)
-    ]
-    bandl = jax.lax.psum(jnp.concatenate(aparts, axis=0), ROW_AXIS)  # (S, w)
-    # Blocked far-U12, mirroring the single-chip `_trailing_update`
-    # ``u12_block=b`` branch OPERATION-FOR-OPERATION (inner-block linv base,
-    # gemm_in correction casts, accum subtract) so the fused dist run stays
-    # bit-identical to the superblocked single-chip driver on far columns —
-    # the parity the fused dist path is tested on.  Columns are independent
-    # in every op here, so running it on ALL local columns (non-far columns
-    # are masked away below) preserves that identity.
-    gin = policy.gemm_in
-    u12f = bandl
-    for bs in range(0, S, b):
-        dblk = jax.lax.dynamic_slice(lss, (bs, bs), (b, b))
-        linv_b = unit_lower_inv_blocked(dblk, base=min(r, 128))
-        u12_b = jnp.dot(
-            linv_b, jax.lax.dynamic_slice(u12f, (bs, 0), (b, w)),
-            preferred_element_type=policy.accum, precision=fprec,
-        ).astype(aloc.dtype)
-        u12f = jax.lax.dynamic_update_slice(u12f, u12_b, (bs, 0))
-        rem = S - bs - b
-        if rem:
-            l21_b = jax.lax.dynamic_slice(lss, (bs + b, bs), (rem, b)).astype(gin)
-            corr = jnp.dot(
-                l21_b, u12_b.astype(gin),
-                preferred_element_type=policy.accum,
-                precision=_mm_precision(l21_b),
-            )
-            band = (
-                jax.lax.dynamic_slice(u12f, (bs + b, 0), (rem, w)).astype(
-                    policy.accum
-                ) - corr
-            ).astype(aloc.dtype)
-            u12f = jax.lax.dynamic_update_slice(u12f, band, (bs + b, 0))
-    farmask = gcols >= sbe                                           # (w,)
-    # write the far U12 rows back to their owners
-    for idx, i in enumerate(range(s0 // b, sbe // b)):
-        lr = (i // gp) * b
-        cur = jax.lax.dynamic_slice(aloc, (lr, 0), (b, w))
-        new = jnp.where((pp == (i % gp)) & farmask[None, :],
-                        u12f[idx * b:(idx + 1) * b, :], cur)
-        aloc = jax.lax.dynamic_update_slice(aloc, new, (lr, 0))
-    # far trailing GEMM on the uniform tail windows (in-window columns left
-    # of sbe see a bit-exact x - 0 through the masked U12)
-    rtf = min((sbe // b) // gp, nlp - 1) * b
-    ctf = min((sbe // b) // gq, nlq - 1) * b
-    lg = jnp.where((grows >= sbe)[:, None], lloc, 0).astype(gin)
-    u12fm = jnp.where(farmask[None, :], u12f, 0).astype(gin)
-    upd = jnp.dot(lg[rtf:], u12fm[:, ctf:], preferred_element_type=policy.accum,
-                  precision=_mm_precision(lg))
-    tail = (aloc[rtf:, ctf:].astype(policy.accum) - upd).astype(aloc.dtype)
-    return aloc.at[rtf:, ctf:].set(tail)
-
-
-def _dist_fused_panel_owner(ploc, pos0, *, off, k0, m, b, r, gp, pp, nlp,
-                            grows, policy, interpret=False):
-    """Owner-column panel factorization for the FUSED dist path (round 5,
-    VERDICT r4 item 5): the block-column slab stays ROW-SHARDED (``ploc``
-    is this device's (H, b) local rows); per r-wide inner panel only the
-    THIN (m, r) panel slice is all_gathered for the replicated Pallas strip
-    kernel (pivot selection — identical data on every device, so pivots
-    are bit-equal to the replicated path by construction), the r pivot
-    rows cross shards with one masked psum for the replicated rowblock
-    refactor (a jnp mirror of `_rowblock_kernel`'s value path — same
-    `_npv_inv_values`, same one-hot/precision choices), and the B-stage
-    streaming update — the DOMINANT m*b^2 panel term — runs on LOCAL rows
-    only: per-device panel flops m*b*r (replicated A1, the r/b fraction) +
-    m*b^2/P (sharded B) instead of the replicated path's m*b^2.
-
-    Returns ``(ploc', pos (m,), piv (b,), olog (b,), u_all (b, b),
-    info)`` — all window-local like `_factor_block_column_fused`."""
-    from mpf_tpu.models.mpf import _FUSED_RB
-    from mpf_tpu.ops.panel_strip import strip_panel_pivots
-    from mpf_tpu.ops.panel_fused import _npv_inv_values, panel_apply_update_trim
-
-    f32 = jnp.float32
-    w = ploc.dtype
-    h = ploc.shape[0]
-    n = m + k0
-    hi = jax.lax.Precision.HIGHEST if w == f32 else None
-    gemm_bf16 = (
-        jnp.dtype(policy.gemm_in) == jnp.bfloat16
-        and jnp.dtype(policy.working) != jnp.bfloat16
-    )
-    # smallest UNIFORM local window containing every device's rows >= k0
-    l0 = min((k0 // b) // gp, nlp - 1) * b
-    hw = h - l0
-    rb = min(_FUSED_RB, hw)
-    while hw % rb:
-        rb //= 2
-    lanebc = jax.lax.broadcasted_iota(jnp.int32, (1, b), 1)
-    rr = jax.lax.broadcasted_iota(jnp.int32, (r, 1), 0)
-
-    pos = pos0
-    info = jnp.int32(0)
-    pivs, ologs, rowblocks = [], [], []
-    for t in range(b // r):
-        jj0 = t * r
-        # -- A1: replicated thin panel slice + Pallas strip pivot kernel --
-        psl_loc = jax.lax.dynamic_slice(ploc, (0, jj0), (h, r))
-        parts = jax.lax.all_gather(psl_loc, ROW_AXIS)        # (gp, H, r)
-        psl = parts.reshape(gp, nlp, b, r).transpose(1, 0, 2, 3)
-        psl = psl.reshape(n, r)[k0:]                          # (m, r) global order
-        piv_t, pos, olog_t = strip_panel_pivots(
-            psl, (off - k0) + jj0, pos, panel_dtype=policy.panel,
-            interpret=interpret, jj0=0, r=r, pos_bound=m,
-        )
-        # -- A2: one masked psum gathers the r pivot rows; replicated
-        # refactor mirrors `_rowblock_kernel`'s value path op-for-op ------
-        owner_g, lrow_g = owner_local_row(k0 + olog_t, b, gp)
-        mine = owner_g == pp
-        rws = jnp.take(ploc, jnp.where(mine, lrow_g, 0), axis=0)
-        staged = jax.lax.psum(
-            jnp.where(mine[:, None], rws, jnp.zeros_like(rws)), ROW_AXIS
-        )                                                     # (r, b)
-        diag = jax.lax.dynamic_slice(staged, (0, jj0), (r, r)).astype(f32)
-        lu_d, linv, uinv, info_k = _npv_inv_values(diag, r)
-        info = jnp.where((info == 0) & (info_k[0, 0] > 0),
-                         info_k[0, 0] + jj0, info)
-        u12 = jnp.dot(linv.astype(w) if w != f32 else linv, staged,
-                      preferred_element_type=f32, precision=hi)
-        e2 = (lanebc == jj0 + rr).astype(w)
-        placed = jnp.dot(lu_d.astype(w), e2, preferred_element_type=f32,
-                         precision=hi)
-        in_panel = (lanebc >= jj0) & (lanebc < jj0 + r)
-        left = lanebc < jj0
-        rowblock = jnp.where(
-            in_panel, placed.astype(w), jnp.where(left, staged,
-                                                  u12.astype(w))
-        )
-        # -- B: streaming update on LOCAL rows only (the 1/P term) --------
-        vposl = jnp.where(
-            grows >= k0,
-            jnp.take(pos, jnp.maximum(grows - k0, 0), mode="clip"),
-            jnp.int32(-1),  # frozen local rows above the window
-        )
-        sl = jax.lax.dynamic_slice(ploc, (l0, 0), (hw, b))
-        sl = panel_apply_update_trim(
-            sl, vposl[l0:], rowblock, uinv.astype(w), (off - k0) + jj0,
-            jj0, rb=rb, gemm_bf16=gemm_bf16, interpret=interpret,
-        )
-        ploc = jax.lax.dynamic_update_slice(ploc, sl, (l0, 0))
-        pivs.append(piv_t)
-        ologs.append(olog_t)
-        rowblocks.append(rowblock)
-    piv = pivs[0] if len(pivs) == 1 else jnp.concatenate(pivs)
-    olog = ologs[0] if len(ologs) == 1 else jnp.concatenate(ologs)
-    u_all = (rowblocks[0] if len(rowblocks) == 1
-             else jnp.concatenate(rowblocks))
-    return ploc, pos, piv, olog, u_all, info
-
-
-def _dist_lu_local_fused(tile, *, n, b, r, gp, gq, nb, policy,
-                         super_block="auto", owner_panel=False):
-    """Fused-kernel variant of :func:`_dist_lu_local`: the block column is
-    factored with the single-chip fused pipeline (strip-blocked pivot
-    kernel, rowblock assembly, streaming update — `ops/panel_strip.py` /
-    `ops/panel_fused.py`), so a (1, 1)-mesh run is structurally the
-    single-chip driver plus no-op collectives.
-
-    ``owner_panel`` (round 5, VERDICT r4 item 5): keep the block-column
-    slab ROW-SHARDED and run the panel stage via
-    :func:`_dist_fused_panel_owner` — per-device panel flops scale as
-    m*b*r (replicated A1 on thin (m, r) all_gathered slices) + m*b^2/P
-    (B-stage on local rows), instead of the replicated path's constant
-    m*b^2.  Pivot selection still runs on replicated data, so pivots are
-    bit-equal to the replicated path by construction (tested on the CPU
-    mesh).  Default for the fused path when three-level blocking is off.
-
-    Replicated fallback (round 4 analysis): constant per-device panel
-    cost, 2 collectives per block column, chip-proven kernels end to end;
-    panel work is O(n^2 b) of the O(n^3) total, so replication costs
-    ~b/n*P of ideal scaling.  The step loop is unrolled at trace time
-    (static offsets, like the single-chip outer loop).  Three-level
-    blocking (`super_block`, same resolution rule as the single-chip
-    driver): per-step trailing work is confined to the superblock's
-    remaining columns and the far window is updated once per superblock by
-    :func:`_dist_super_far` (replicated-panel mode only)."""
-    from mpf_tpu.models.mpf import _resolve_super
-
-    S = _resolve_super(n, b, super_block)
-    if S is not None:
-        owner_panel = False  # superblock deferral needs the replicated panel
-    aloc = tile[0, 0]
-    h, w = aloc.shape
-    pp = jax.lax.axis_index(ROW_AXIS)
-    qq = jax.lax.axis_index(COL_AXIS)
-    grows = local_row_indices(h, b, gp, pp)
-    gcols = local_col_indices(w, b, gq, qq)
-    nlp, nlq = h // b, w // b
-    rows_g = jax.lax.broadcasted_iota(jnp.int32, (n, 1), 0)[:, 0]
-    gemm_prec = _mm_precision(jnp.zeros((), policy.gemm_in))
-
-    def gather_panel(aloc, k):
-        jl = min(k // gq, nlq - 1)
-        colsl = aloc[:, jl * b : (jl + 1) * b]
-        colsl = jnp.where(qq == k % gq, colsl, jnp.zeros_like(colsl))
-        colsl = jax.lax.psum(colsl, COL_AXIS)
-        parts = jax.lax.all_gather(colsl, ROW_AXIS)          # (P, H, b)
-        return parts.reshape(gp, nlp, b, b).transpose(1, 0, 2, 3).reshape(n, b)
-
-    def gather_panel_local(aloc, k):
-        """Local rows of block column k, COL-psum only (owner-panel mode)."""
-        jl = min(k // gq, nlq - 1)
-        colsl = aloc[:, jl * b : (jl + 1) * b]
-        return jax.lax.psum(
-            jnp.where(qq == k % gq, colsl, jnp.zeros_like(colsl)), COL_AXIS
-        )
-
-    ipiv = rows_g + 1
-    info = jnp.int32(0)
-    permc = rows_g
-    panel = gather_panel_local(aloc, 0) if owner_panel else gather_panel(aloc, 0)
-
-    from mpf_tpu.models.mpf import _pad_quantum
-
-    for k in range(nb):
-        off = k * b
-        qk, pk = k % gq, k % gp
-        jl, il = k // gq, k // gp
-
-        # -- fused block-column factorization on the shrinking tail window
-        # (rows above k0 can neither pivot nor update — same quantized
-        # windowing as the single-chip driver) ------------------------------
-        q = _pad_quantum(n)
-        m = min(n, -((off - n) // q) * q)
-        k0 = n - m
-        if owner_panel:
-            pos0 = jax.lax.broadcasted_iota(jnp.int32, (m, 1), 0)[:, 0]
-            panel, pos_l, piv_l, olog_l, u_all, info_b = (
-                _dist_fused_panel_owner(
-                    panel, pos0, off=off, k0=k0, m=m, b=b, r=r, gp=gp, pp=pp,
-                    nlp=nlp, grows=grows, policy=policy,
-                )
-            )
-        else:
-            sub = panel[k0:, :]
-            sub, pos_l, olog_l, piv_l, u_all, info_b = (
-                _factor_block_column_fused(sub, off - k0, r, policy)
-            )
-            panel = panel.at[k0:, :].set(sub)
-        info = jnp.where((info == 0) & (info_b > 0), info_b + off, info)
-        ipiv = ipiv.at[off : off + b].set(k0 + piv_l + 1)
-
-        # bounded exchange on the panel (virtual -> physical), composed-map
-        # structure: the band receives the pivot rows (olog), the displaced
-        # band occupants go to their final positions (pos)
-        band_idx = (off - k0) + jax.lax.broadcasted_iota(
-            jnp.int32, (b, 1), 0
-        )[:, 0]
-        dests_b = k0 + jnp.take(pos_l, band_idx)
-        # NOTE: when a pivot comes from inside the band, position off+j is a
-        # destination in BOTH halves — with identical source values (the row
-        # is its own pivot), which rows_scatter_inplace's relaxed contract
-        # ("duplicates iff values identical") explicitly allows.
-        cand = jnp.concatenate([k0 + band_idx, dests_b])
-        src_g = jnp.concatenate([k0 + olog_l, k0 + band_idx])
-        if owner_panel:
-            # sharded panel exchange: the <=2b moved rows cross shards via
-            # one masked psum, then the finished band rows (u_all,
-            # replicated) overwrite their owners' local rows
-            owner_ps, lrow_ps = owner_local_row(src_g, b, gp)
-            mine_ps = owner_ps == pp
-            pr = jnp.take(panel, jnp.where(mine_ps, lrow_ps, 0), axis=0)
-            pr = jnp.where(mine_ps[:, None], pr, jnp.zeros_like(pr))
-            pr = jax.lax.psum(pr, ROW_AXIS)                  # (2b, b)
-            owner_pc, lrow_pc = owner_local_row(cand, b, gp)
-            pidx = jnp.where(owner_pc == pp, lrow_pc, h)
-            panel = panel.at[pidx, :].set(pr, mode="drop")
-            bpos = off + jax.lax.broadcasted_iota(jnp.int32, (b, 1), 0)[:, 0]
-            owner_u, lrow_u = owner_local_row(bpos, b, gp)
-            uidx = jnp.where(owner_u == pp, lrow_u, h)
-            panel = panel.at[uidx, :].set(u_all, mode="drop")
-        else:
-            moved = jax.lax.optimization_barrier(
-                jnp.take(panel, src_g, axis=0))
-            if config.use_pallas() and jax.default_backend() == "tpu":
-                from mpf_tpu.ops.panel_fused import rows_scatter_inplace
-
-                # in-place RMW scatter (XLA row scatter rewrites the whole
-                # panel buffer); self-moves (pivot already in place) skip
-                panel = rows_scatter_inplace(panel, cand, moved,
-                                             self_src=src_g)
-            else:
-                panel = panel.at[cand, :].set(moved)
-            panel = jax.lax.dynamic_update_slice(panel, u_all, (off, 0))
-        pc_old = permc
-        permc = permc.at[off + jax.lax.broadcasted_iota(jnp.int32, (b, 1), 0)[:, 0]
-                         ].set(jnp.take(pc_old, k0 + olog_l))
-        permc = permc.at[dests_b].set(jnp.take(pc_old, k0 + band_idx))
-        piv_l = k0 + piv_l
-
-        # -- cross-chip bounded row exchange on the local tiles ------------
-        owner_s, lrow_s = owner_local_row(src_g, b, gp)
-        mine_s = owner_s == pp
-        srows = jnp.take(aloc, jnp.where(mine_s, lrow_s, 0), axis=0)
-        srows = jnp.where(mine_s[:, None], srows, jnp.zeros_like(srows))
-        srows = jax.lax.psum(srows, ROW_AXIS)
-        owner_c, lrow_c = owner_local_row(cand, b, gp)
-        if config.use_pallas() and jax.default_backend() == "tpu":
-            from mpf_tpu.ops.panel_fused import rows_scatter_inplace
-
-            aloc = rows_scatter_inplace(
-                aloc, lrow_c, srows,
-                self_src=jnp.where(src_g == cand, lrow_c, -1),
-                active=owner_c == pp,
-            )
-        else:
-            scatter_idx = jnp.where(owner_c == pp, lrow_c, h)
-            aloc = aloc.at[scatter_idx, :].set(srows, mode="drop")
-
-        # -- panel writeback (local rows ARE the shard in owner mode;
-        # strided block slice otherwise — no row gather either way) --------
-        if owner_panel:
-            pmine = panel
-        else:
-            pmine = panel.reshape(n // (gp * b), gp, b, b)
-            pmine = jax.lax.dynamic_index_in_dim(pmine, pp, axis=1,
-                                                 keepdims=False)
-            pmine = pmine.reshape(h, b)
-        cur = aloc[:, jl * b : (jl + 1) * b]
-        aloc = aloc.at[:, jl * b : (jl + 1) * b].set(
-            jnp.where(qq == qk, pmine, cur)
-        )
-
-        # superblock window: per-step (mid) trailing work stays inside
-        # [off + b, sbe); the far window [sbe, n) is updated once per
-        # superblock at the boundary step (single-chip `_trailing_update`
-        # deferral, SPMD form)
-        sbe = n if S is None else min(off - off % S + S, n)
-        boundary = S is not None and off + b == sbe and sbe < n
-
-        # -- U12 row block: replicate owner's rows, TRSM by blocked inverse
-        # (mid columns only; far U12 is computed by the boundary-wide TRSM)
-        colmask = (gcols >= off + b) & (gcols < sbe)
-        if off + b < sbe:
-            rowsl = aloc[il * b : (il + 1) * b, :]
-            rowsl = jnp.where(pp == pk, rowsl, jnp.zeros_like(rowsl))
-            rowsl = jax.lax.psum(rowsl, ROW_AXIS)
-            linv = unit_lower_inv_blocked(u_all, base=min(r, 128))
-            u12 = jnp.dot(
-                linv, rowsl, preferred_element_type=policy.accum,
-                precision=_mm_precision(linv),
-            ).astype(aloc.dtype)
-            cur_row = aloc[il * b : (il + 1) * b, :]
-            aloc = aloc.at[il * b : (il + 1) * b, :].set(
-                jnp.where((pp == pk) & colmask[None, :], u12, cur_row)
-            )
-        else:
-            u12 = jnp.zeros((b, w), aloc.dtype)
-
-        # -- lookahead narrow update + next-panel gather -------------------
-        # The trailing work is confined to the STATIC local windows
-        # [rt:, ct:] — the smallest uniform (SPMD) slices containing every
-        # device's unfinished blocks (rows/cols of finished blocks inside
-        # the window are masked to zero by lg/u12m).  Round 2 ran the GEMM
-        # and the subtract over the FULL (h, w) tile every step: 3x the
-        # GEMM flops and 3x the subtract HBM traffic of the true trailing
-        # work — the bulk of the round-2 (1,1)-mesh +20-29% overhead.
-        lmine = jnp.where((grows >= off + b)[:, None], pmine, 0)
-        lg = lmine.astype(policy.gemm_in)
-        u12m = jnp.where(colmask[None, :], u12, 0)
-        rt = min((k + 1) // gp, nlp - 1) * b
-        ct = min((k + 1) // gq, nlq - 1) * b
-        # smallest uniform local window containing every device's mid
-        # columns; in-window columns >= sbe see a bit-exact x - 0 through
-        # the colmask-zeroed U12
-        ct2 = min(-(-(sbe // b) // gq), nlq) * b
-        if k + 1 < nb and boundary:
-            # superblock boundary: the next panel lives in the FAR window,
-            # so the wide deferred update must land before its gather (the
-            # narrow lookahead is subsumed by it)
-            aloc = _dist_super_far(
-                aloc, sbe - S, sbe, n=n, b=b, r=r, gp=gp, gq=gq, pp=pp, qq=qq,
-                grows=grows, gcols=gcols, policy=policy,
-            )
-            panel = gather_panel(aloc, k + 1)
-        elif k + 1 < nb:
-            jl2, qk2 = (k + 1) // gq, (k + 1) % gq
-            ucol = u12m[:, jl2 * b : (jl2 + 1) * b]
-            updn = jnp.dot(
-                lg[rt:], ucol.astype(policy.gemm_in),
-                preferred_element_type=policy.accum, precision=gemm_prec,
-            )
-            curn = aloc[rt:, jl2 * b : (jl2 + 1) * b]
-            newn = (curn.astype(policy.accum) - updn).astype(aloc.dtype)
-            aloc = aloc.at[rt:, jl2 * b : (jl2 + 1) * b].set(
-                jnp.where(qq == qk2, newn, curn)
-            )
-            panel = (gather_panel_local(aloc, k + 1) if owner_panel
-                     else gather_panel(aloc, k + 1))
-            cidx = jax.lax.broadcasted_iota(jnp.int32, (w, 1), 0)[:, 0] // b
-            skip = (qq == qk2) & (cidx == jl2)
-            u12m = jnp.where(skip[None, :], 0, u12m)
-
-            # -- trailing update (one local MXU GEMM on the tail window,
-            # mid columns only) --------------------------------------------
-            if ct < ct2:
-                upd = jnp.dot(
-                    lg[rt:], u12m[:, ct:ct2].astype(policy.gemm_in),
-                    preferred_element_type=policy.accum, precision=gemm_prec,
-                )
-                tail = (
-                    aloc[rt:, ct:ct2].astype(policy.accum) - upd
-                ).astype(aloc.dtype)
-                aloc = aloc.at[rt:, ct:ct2].set(tail)
-
-    return aloc[None, None], ipiv, info, permc
-
-
 def make_dist_lu(n: int, b: int, mesh, policy: PrecisionPolicy = MPF_BF16,
-                 pivot: bool = True, r: int = 128, super_block="auto"):
+                 pivot: bool = True):
     """Build the jitted SPMD factorizer over ``mesh`` for (P,Q,H,W) tiles.
 
     Returns ``fn(tiles) -> (tiles_lu, ipiv, info, perm)`` where
     ``ipiv``/``info``/``perm`` are replicated (``perm`` is the composed row
     map, see ``MPFResult.perm``).  Use :func:`mpf_tpu.parallel.block_cyclic.shard_block_cyclic`
     to lay out the input.
-
-    When the fused-kernel constraints hold (TPU Pallas, ``b % r == 0``,
-    aligned sizes) the replicated block-column factorization runs the
-    single-chip fused pipeline with inner panel width ``r``; use a large
-    layout block (b=1024) there so the trailing GEMMs stay big.
     """
     import os
 
     gp, gq = mesh.shape[ROW_AXIS], mesh.shape[COL_AXIS]
     nb = check_dims(n, b, gp, gq)
-    if _dist_fused_ok(n, b, r, policy, pivot):
-        # round 5 default: owner-column panel (sharded B-stage -> per-device
-        # panel flops ~1/P; MPF_DIST_FUSED_PANEL=replicated restores the
-        # round-4 replicated-panel form)
-        body = functools.partial(
-            _dist_lu_local_fused, n=n, b=b, r=r, gp=gp, gq=gq, nb=nb,
-            policy=policy, super_block=super_block,
-            owner_panel=os.environ.get("MPF_DIST_FUSED_PANEL", "owner")
-            == "owner",
-        )
-    elif os.environ.get("MPF_DIST_PANEL", "owner") == "owner":
-        # round 4 default for the jnp path: row-sharded panel work (1/P
-        # per-device panel flops, no (N, b) all_gather); bit-identical
-        # results to the replicated path (`MPF_DIST_PANEL=replicated`)
+    if os.environ.get("MPF_DIST_PANEL", "owner") == "owner":
+        # row-sharded panel work (1/P per-device panel flops, no (N, b)
+        # all_gather); bit-identical results to the replicated path
+        # (`MPF_DIST_PANEL=replicated`)
         body = functools.partial(
             _dist_lu_local_owner, n=n, b=b, gp=gp, gq=gq, nb=nb,
             policy=policy, pivot=pivot,

@@ -16,7 +16,7 @@ SPMD design (shard_map over the same (P, Q) mesh as `dist_lu`):
     over both mesh axes, solved locally everywhere (replicated, so no
     result broadcast), and the <= n trailing updates are computed from the
     owning device column's local rows and combined with one more psum —
-    2*nb collectives of b and n elements, all riding ICI;
+    2*nb collectives of b and n elements;
   * the IR residual is a distributed GEMV: every device multiplies its
     local tile by its columns' slice of x, scatters into global row
     positions, and one psum over both axes replicates the residual.

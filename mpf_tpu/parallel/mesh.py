@@ -1,6 +1,6 @@
 """Device mesh construction and capability probe.
 
-TPU-native analogue of the reference's `check_cooperative_groups.cu:4-48`
+Analogue of the reference's `check_cooperative_groups.cu:4-48`
 probe (which enumerates devices and checks cooperative-launch support): here
 we enumerate JAX devices, report platform/memory, and construct the 2D
 process mesh used by the block-cyclic distributed LU.

@@ -1,12 +1,12 @@
 """L0: precision policies and cast utilities.
 
-TPU-native replacement for the reference's fp16 precision utilities
+Replacement for the reference's fp16 precision utilities
 (`fp16_utils.h:5-27` in the reference repo): the reference aliases
 ``fp16 = __half`` and converts fp64 -> fp16 with saturation to +-65504 and
 flush-to-zero below the smallest normal 6.10352e-05 (`fp16_utils.h:15-23`).
 
-On TPU the natural low precision is **bfloat16** (MXU-native, fp32-range
-exponent), and the working precision is **fp32** (TPUs have no fp64).  A
+The default low precision is **bfloat16** (tensor-core native, fp32-range
+exponent), and the working precision is **fp32**.  A
 :class:`PrecisionPolicy` captures the full dtype story of a factorization:
 
   * ``working``  — storage/working precision of the matrix (reference: fp64)
@@ -15,7 +15,7 @@ exponent), and the working precision is **fp32** (TPUs have no fp64).  A
   * ``gemm_in``  — input precision of the trailing-update GEMM operands
                    (reference: fp64 via cublasDgemm, `MPF.cu:230-239`;
                    north star: bf16 inputs)
-  * ``accum``    — accumulation precision of MXU contractions
+  * ``accum``    — accumulation precision of matrix products
                    (``preferred_element_type``)
   * ``residual`` — residual precision for iterative refinement
 
@@ -55,8 +55,8 @@ class PrecisionPolicy:
         )
 
 
-#: Default TPU policy (the north-star MPF translation): fp32 working matrix,
-#: bf16 pre-pivoting panel, bf16 trailing GEMM inputs with fp32 MXU
+#: Default policy (the north-star MPF translation): fp32 working matrix,
+#: bf16 pre-pivoting panel, bf16 trailing GEMM inputs with fp32
 #: accumulation, fp32 residuals for iterative refinement.
 MPF_BF16 = PrecisionPolicy(
     name="mpf_bf16",
@@ -69,7 +69,7 @@ MPF_BF16 = PrecisionPolicy(
 
 #: Strict-parity policy mirroring the reference's fp16 panel semantics
 #: (`fp16_utils.h:15-23`), with the working precision still fp32 (no fp64 on
-#: TPU).  Mainly for numerics experiments / differential tests.
+#: fp64 policy yet).  Mainly for numerics experiments / differential tests.
 MPF_FP16 = PrecisionPolicy(
     name="mpf_fp16",
     working=jnp.float32,
@@ -94,7 +94,7 @@ MPF_REF = PrecisionPolicy(
     residual=jnp.float32,
 )
 
-#: Everything in fp32 — the accuracy reference point on TPU (analogous to the
+#: Everything in fp32 — the accuracy reference point (analogous to the
 #: reference's fp64 LAPACKE_dgetrf baseline, `benchmark.cpp:239-242`).
 PURE_FP32 = PrecisionPolicy(
     name="pure_fp32",

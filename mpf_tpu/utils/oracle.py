@@ -17,7 +17,7 @@ the primary gate here is the **normwise backward error**
 ``||P L U - A|| / (n ||A||)`` (north star: O(eps_fp32) after <= 3 IR sweeps,
 BASELINE.json); the reference's absolute elementwise tolerance is kept as a
 secondary measure, rescaled per precision.  Everything runs in fp64 numpy on
-host — TPUs have no fp64, so the oracle deliberately lives off-device.
+host, independent of the device code it checks.
 """
 
 from __future__ import annotations

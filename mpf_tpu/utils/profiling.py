@@ -1,6 +1,6 @@
 """Profiling helpers (aux-subsystem parity, SURVEY.md section 5: the
 reference has only chrono wall-clock timers, `benchmark.cpp:219-222`; the
-TPU-native equivalent is `jax.profiler` device traces + derived TFLOP/s)."""
+equivalent here is `jax.profiler` device traces + derived TFLOP/s)."""
 
 from __future__ import annotations
 

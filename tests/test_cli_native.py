@@ -86,7 +86,7 @@ def test_benchmark_cli(tmp_path):
 
     matio.write_matrix_file(corpus, matgen.generate_corpus(8))
     csv = str(tmp_path / "times.csv")
-    env = dict(os.environ, MPF_FORCE_CPU="1")
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
     r = subprocess.run(
         [sys.executable, "-m", "mpf_tpu.cli.benchmark", corpus, "--csv", csv, "--r", "4"],
         capture_output=True, text=True, cwd=REPO, env=env,
@@ -107,7 +107,7 @@ def test_benchmark_cli_dist(tmp_path):
     matio.write_matrix_file(corpus, [matgen.hpl_ai_matrix(64, seed=2)])
     csv = str(tmp_path / "times.csv")
     env = dict(
-        os.environ, MPF_FORCE_CPU="1",
+        os.environ, JAX_PLATFORMS="cpu",
         XLA_FLAGS=os.environ.get("XLA_FLAGS", "")
         + " --xla_force_host_platform_device_count=8",
     )
@@ -123,7 +123,7 @@ def test_benchmark_cli_dist(tmp_path):
 
 
 def test_probe_cli():
-    env = dict(os.environ, MPF_FORCE_CPU="1")
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
     r = subprocess.run(
         [sys.executable, "-m", "mpf_tpu.cli.probe", "--json"],
         capture_output=True, text=True, cwd=REPO, env=env,

@@ -1,24 +1,20 @@
 """Three-level (superblock) driver blocking: far trailing updates are
 deferred to once per superblock (one wide k=S GEMM) instead of once per
-block, cutting the dominant A22 read-modify-write HBM traffic ~S/block x.
+block, cutting the dominant A22 read-modify-write memory traffic ~S/block x.
 Results must stay oracle-correct and (in fp32) pivot-identical to the
 two-level driver."""
 
 import numpy as np
 import jax
 import jax.numpy as jnp
-import jax.experimental.pallas.tpu as pltpu
 import pytest
 
-import mpf_tpu.config as cfg
-import mpf_tpu.models.mpf as M
 from mpf_tpu import mpf_factorize, MPF_BF16, PURE_FP32
 from mpf_tpu.models.mpf import _resolve_super
-from mpf_tpu.precision import ALL_BF16
 from mpf_tpu.utils import matgen
 from mpf_tpu.utils.oracle import check_factorization
 
-pytestmark = pytest.mark.slow  # interpret-mode Pallas throughout
+pytestmark = pytest.mark.slow
 
 
 @pytest.mark.parametrize(
@@ -57,39 +53,8 @@ def test_superblock_fp32_pivot_invariance():
     )
 
 
-@pytest.mark.parametrize(
-    "matname,gen,pol,tol",
-    [
-        ("hpl", matgen.hpl_ai_matrix, MPF_BF16, 1e-3),
-        ("uniform", matgen.random_dense, MPF_BF16, 1e-3),
-        ("hpl", matgen.hpl_ai_matrix, ALL_BF16, 5e-2),
-    ],
-)
-def test_superblock_fused_interpret(matname, gen, pol, tol, monkeypatch):
-    """Superblocking composed with the fused virtual-pivoting block-column
-    path (Pallas kernels, interpret mode)."""
-    monkeypatch.setattr(M, "_PAD_QUANTUM", 128)
-    monkeypatch.setattr(M, "_FUSED_RB", 128)
-    monkeypatch.setattr(cfg, "_USE_PALLAS", "1")
-    n, r, block, S = 512, 8, 128, 256
-    a = gen(n, seed=1).astype(np.float32)
-    with pltpu.force_tpu_interpret_mode():
-        res = jax.tree.map(
-            np.asarray,
-            M.mpf_factorize_traced(
-                jnp.asarray(a, dtype=pol.working), r=r, policy=pol,
-                block=block, super_block=S,
-            ),
-        )
-    rep = check_factorization(a.astype(np.float64), res.lu, res.ipiv,
-                              nbe_tol=tol)
-    assert rep.ok, str(rep)
-    assert np.array_equal(np.sort(res.perm), np.arange(n))
-
-
 def test_resolve_super():
-    # auto resolves to DISABLED (lost its chip A/Bs on both headline
-    # configs, round 3); explicit values still work
+    # auto resolves to DISABLED; explicit values still work
     assert _resolve_super(32768, 1024, "auto") is None
     assert _resolve_super(8192, 1024, "auto") is None
     assert _resolve_super(2048, 1024, "auto") is None
